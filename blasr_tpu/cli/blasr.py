@@ -52,7 +52,7 @@ BMC Bioinformatics 2012, 13:238."""
 def build_arg_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="blasr_tpu",
-        description="TPU-native long-read mapper with BLASR's capabilities",
+        description="Batched JAX long-read mapper with BLASR's capabilities",
         epilog=_DISCUSSION,
         formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("reads", help="reads file (fasta/fastq/fofn)")
@@ -206,11 +206,11 @@ def build_arg_parser() -> argparse.ArgumentParser:
                     help="separate region-table rgn.h5 (DEPRECATED)")
     ap.add_argument("--global", dest="globalAlign", action="store_true")
     ap.add_argument("--accuracyPrior", type=float, default=0.0)
-    # TPU-build extension: charge the candidate chain |dt-dq| anchor-bases
+    # extension: charge the candidate chain |dt-dq| anchor-bases
     # per base of diagonal drift (0 = reference LIS weightor semantics;
     # the ambiguity-rescue deep pass always ranks penalized)
     ap.add_argument("--candidateDriftPenalty", type=float, default=0.0)
-    # TPU-build extension: keep the rescue deep pass's full-span
+    # extension: keep the rescue deep pass's full-span
     # competitor alignments for the mapQV partition (repeat-interior
     # phase-ambiguity calibration; tools/diag_str.py)
     ap.add_argument("--fullSpanMapQV", action="store_true")
@@ -447,26 +447,14 @@ def run(argv: Optional[List[str]] = None) -> int:
                     return 1
             except (FileNotFoundError, PermissionError):
                 pass
-    # persistent compile cache: repeat invocations with the same shapes
-    # skip the (remote) XLA compile — the biggest first-run cost
-    try:
-        import os as _os
-
-        import jax as _jax
-        from blasr_tpu.hostcache import host_cache_dir
-        _cache = _os.environ.get(
-            "BLASR_TPU_COMPILE_CACHE",
-            host_cache_dir(_os.path.expanduser("~/.cache/blasr_tpu/jax")))
-        already = getattr(_jax.config, "jax_compilation_cache_dir", None)
-        if _cache and not already:
-            _os.makedirs(_cache, exist_ok=True)
-            _jax.config.update("jax_compilation_cache_dir", _cache)
-            _jax.config.update(
-                "jax_persistent_cache_min_compile_time_secs", 1.0)
-            _jax.config.update(
-                "jax_persistent_cache_min_entry_size_bytes", -1)
-    except (ImportError, RuntimeError, OSError):
-        pass
+    # persistent compile cache (JAX_COMPILATION_CACHE_DIR, else
+    # <repo>/.jax_cache): repeat invocations with the same shapes skip the
+    # XLA compile, the biggest first-run cost.  A cache the caller already
+    # configured (tests, embedding programs) is left alone.
+    import jax as _jax
+    if not _jax.config.jax_compilation_cache_dir:
+        from blasr_tpu.hostcache import enable_compile_cache
+        enable_compile_cache()
     log("started.")
 
     if args.sa:

@@ -1,6 +1,6 @@
 """Multi-device mapping: data-parallel reads and reference-sharded genomes.
 
-TPU-native replacement for the reference's parallelism stack (SURVEY.md
+Device-mesh replacement for the reference's parallelism stack (SURVEY.md
 §2.9): pthreads + semaphores become a ``jax.sharding.Mesh`` with a ``data``
 axis (reads; the --nproc/--stride analog) and a ``ref`` axis (genome
 shards; the automated version of the reference's documented
@@ -274,3 +274,59 @@ def globalize_sharded(result, offs: np.ndarray, n_dp: int):
     ts = result.t_start.astype(np.int64) + np.where(slot >= 0, off, 0)
     te = result.t_end.astype(np.int64) + np.where(slot >= 0, off, 0)
     return ts, te
+
+
+def placement_parity(rep, res, ts, te, n_data: int):
+    """Per read, does the sharded run ``res`` (an unpacked
+    ``map_batch_ref_sharded`` result with global coordinates ``ts``/``te``)
+    place it where the replicated single-device run ``rep`` does?  The
+    criterion: same winning strand, sharded score within +16 of the
+    replicated one, and >50% overlap of the target intervals.  Per-row
+    score equality is the wrong contract: each shard spends its full
+    anchor budget on 1/n_ref of the genome.  Sharded rows are laid out
+    per data shard as [fwd x B/n_data, rc x B/n_data].  Returns
+    (reads that agree, reads the replicated run maps)."""
+    B = rep.score.shape[0] // 2
+    Bl = B // n_data
+    row_map = {}
+    for d in range(n_data):
+        for i in range(Bl):
+            row_map[d * Bl + i] = d * 2 * Bl + i             # fwd rows
+            row_map[B + d * Bl + i] = d * 2 * Bl + Bl + i    # rc rows
+
+    def best(valid, score, row):
+        ok = np.asarray(valid[row])
+        if not ok.any():
+            return None, None
+        sc = np.where(ok, np.asarray(score[row]), 1 << 30)
+        j = int(np.argmin(sc))
+        return j, float(sc[j])
+
+    checked = agree = 0
+    for r in range(B):  # per read: compare the winning strand row
+        cand = []
+        for row in (r, B + r):
+            j, sc = best(rep.valid, rep.score, row)
+            if j is not None:
+                cand.append((sc, row, j))
+        if not cand:
+            continue
+        checked += 1
+        rsc, rrow, rj = min(cand)
+        scand = []
+        for row in (r, B + r):
+            srow = row_map[row]
+            j, sc = best(res.valid, res.score, srow)
+            if j is not None:
+                scand.append((sc, row, srow, j))
+        if not scand:
+            continue
+        ssc, srow_logical, srow, sj = min(scand)
+        if srow_logical != rrow or ssc > rsc + 16:
+            continue
+        a0, a1 = int(rep.t_start[rrow][rj]), int(rep.t_end[rrow][rj])
+        b0, b1 = int(ts[srow][sj]), int(te[srow][sj])
+        inter = min(a1, b1) - max(a0, b0)
+        if inter > 0.5 * min(a1 - a0, b1 - b0):
+            agree += 1
+    return agree, checked

@@ -1,6 +1,6 @@
 """Multi-host orchestration: input sharding, deterministic merge.
 
-TPU-native replacement for the reference's cross-node story (SURVEY.md
+Multi-process replacement for the reference's cross-node story (SURVEY.md
 §2.9): ``--start/--stride`` independent processes
 (RegisterBlasrOptions.h:93-94) become per-host read shards over a
 ``jax.distributed`` world, and the semaphore-serialized single output
@@ -11,8 +11,10 @@ host count, the property the reference's determinism tests check
 
 Works in three modes:
   * single process (world = 1): passthrough;
-  * multi-host TPU pods: ``init_distributed()`` wires jax.distributed from
-    standard cluster env vars;
+  * multi-host clusters: ``init_distributed()`` wires jax.distributed from
+    standard cluster env vars (one process per GPU: give each its card
+    with ``CUDA_VISIBLE_DEVICES``, or every process reserves memory on
+    every card of its host);
   * any launcher that sets BLASR_TPU_NUM_HOSTS / BLASR_TPU_HOST_ID
     (including plain multi-process CPU runs, used by the tests).
 """

@@ -4,7 +4,7 @@ Reference parity: BLASR can anchor through a BWT-FM index instead of the
 SA (``--bwt``, Blasr.cpp:1073-1080; search dispatch BlasrAlignImpl.hpp:51-58)
 built/inverted by the ``sa2bwt`` / ``bwt2sa`` tools
 (extrautils/SuffixArrayToBWT.cpp:48, BwtToSuffixArray.cpp:33).  The
-trade-off is the same (smaller artifact, slower search); the TPU hot path
+trade-off is the same (smaller artifact, slower search); the device hot path
 keeps the k-mer table, and ``--bwt`` indexes are accepted by converting at
 load (plus an exact FM backward search for API/tool parity).
 

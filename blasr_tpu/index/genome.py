@@ -1,6 +1,6 @@
 """Genome index: concatenated packed genome + seqdb + sorted k-mer anchor index.
 
-TPU-first redesign of the reference's index stack:
+Device-first redesign of the reference's index stack:
 
   * reference: 3-bit genome + Larsson-Sadakane suffix array + 8-mer prefix
     lookup table + TupleCountTable (Blasr.cpp:1082-1147).
@@ -181,7 +181,8 @@ def build_bucket_starts(keys_sorted: np.ndarray, k: int) -> np.ndarray:
     the pos_sorted range whose k-mer equals key.  The device-native form of
     the reference's SA prefix lookup table (BuildLookupTable,
     Blasr.cpp:1101), sized 4^k+1 (k=14 is 1 GiB int32 — affordable
-    on 16 GB HBM and much faster than searchsorted for large genomes).
+    in device memory and much faster than searchsorted for large
+    genomes).
     Replaces the whole binary search with two gathers."""
     nb = 1 << (2 * k)
     m = len(keys_sorted)

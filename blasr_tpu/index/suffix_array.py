@@ -6,7 +6,7 @@ lexicographic suffix order.  We build that artifact with a NumPy
 prefix-doubling (Manber-Myers) algorithm, O(n log^2 n) fully vectorized,
 optionally accelerated by the C++ SA-IS extension in blasr_tpu/native.
 The hot mapping path does NOT binary-search this SA at runtime; it uses the
-sorted fixed-k k-mer index (see index/genome.py), which is the TPU-friendly
+sorted fixed-k k-mer index (see index/genome.py), which is the vector-friendly
 equivalent of SA prefix-lookup + binary search (Blasr.cpp:1082-1121).
 """
 

@@ -1,6 +1,6 @@
 """Batched anchor search on device.
 
-TPU-native re-derivation of BLASR's ``MapBySuffixArray::MapReadToGenome``
+Batched re-derivation of BLASR's ``MapBySuffixArray::MapReadToGenome``
 (usage: iblasr/BlasrAlignImpl.hpp:34-58): for every read position, find
 genome positions whose k-mer matches exactly, extend each hit maximally,
 and emit (q, t, length) anchors subject to ``minMatchLength``,
@@ -8,11 +8,12 @@ and emit (q, t, length) anchors subject to ``minMatchLength``,
 (``RemoveOverlappingAnchors``, BlasrAlignImpl.hpp:143-148).
 
 Instead of per-suffix binary search over a suffix array (pointer-chasing,
-VPU-hostile), the genome is indexed as a *sorted fixed-k k-mer table*
-(keys_sorted / pos_sorted, built in index/genome.py) and the whole batch of
-read positions is resolved with two vectorized ``searchsorted`` calls; hit
-extension is a data-parallel compare over gathered genome windows.  All
-shapes are static: [B, L] reads -> [B, A] anchors with validity masks.
+hostile to vector units), the genome is indexed as a *sorted fixed-k k-mer
+table* (keys_sorted / pos_sorted, built in index/genome.py) and the whole
+batch of read positions is resolved with two vectorized ``searchsorted``
+calls; hit extension is a data-parallel compare over gathered genome
+windows.  All shapes are static: [B, L] reads -> [B, A] anchors with
+validity masks.
 """
 
 from __future__ import annotations
@@ -308,8 +309,8 @@ def find_anchors(
 
     # top-A selection: valid first, longer first, equal lengths spread
     # across read positions by a bit-reversed (low-discrepancy) tie-break
-    # (lax.top_k measured slower here in the fused pipeline graph — full
-    # argsort fuses better).  A first-flat-index tie-break would cluster
+    # (a full argsort, which fuses into the pipeline graph, rather than
+    # lax.top_k).  A first-flat-index tie-break would cluster
     # the kept anchors at the read start whenever the anchor count
     # saturates max_anchors — on repetitive templates (all anchors the
     # same length, ctest/bug25328.t unrolled resequencing) that starves

@@ -8,14 +8,16 @@ reference's SDP fragment path), scores minimize (match -5 / mismatch 6 /
 asymmetric indels, iblasr/RegisterBlasrOptions.h:350-360 semantics), and a
 2-bit-per-state traceback is stored per banded cell.
 
-TPU mapping:
+Mapping onto the device (this module is the plain-JAX version and the
+reference; kernels/banded_cuda.py runs the same forward pass as a CUDA
+kernel on GPUs):
   * rows = query positions, processed by one ``lax.scan``; each step is a
-    fixed 128-lane band vector -> pure VPU work, vmapped over a flattened
-    [reads x candidates] batch so every step is [N, 128].
+    fixed 128-lane band vector of elementwise work, vmapped over a
+    flattened [reads x candidates] batch so every step is [N, 128].
   * the in-row deletion recurrence D[w] = min(D[w-1]+ext, base[w-1]+open)
     is solved in closed form with a prefix cummin
-    (D = ext*w + cummin(base - ext*w') + open), avoiding the sequential
-    lane walk that would stall the VPU.
+    (D = ext*w + cummin(base - ext*w') + open), avoiding a sequential
+    lane walk.
   * band offsets shift per row along the guide path; shifts are realized
     with dynamic slices of 1-padded carries, so arbitrary per-row target
     jumps (deletion bursts between anchors) stay within the recurrence.
@@ -32,8 +34,8 @@ import jax
 import jax.numpy as jnp
 
 # All costs are integer-valued; f32 arithmetic on integers < 2^24 is exact,
-# so comparisons (tie detection for traceback bits) are bit-stable while
-# keeping the fast f32 VPU path.
+# so comparisons (tie detection for traceback bits) are bit-stable on any
+# backend and in any summation order, while keeping fast f32 vector math.
 INF = jnp.float32(1e30)
 
 # traceback cell word layout (int32 per banded cell)
@@ -414,6 +416,17 @@ def banded_align(
             reads, windows, offsets, qa, qb, ta, tb,
             submat, ins_open, ins_ext, del_open, del_ext, w_b)
     return BandedResult(score, tbbits, state.astype(jnp.int32), ok)
+
+
+def slope_limit_offsets(offs: jnp.ndarray) -> jnp.ndarray:
+    """Clamp band offsets int32 [..., L] to a monotone path advancing 0, 1
+    or 2 per row (the CUDA kernel's shift contract).  The recurrence
+    o'[r] = min(o[r], o'[r-1] + 2) over the running max o unrolls to the
+    closed form 2r + cummin(o - 2r) (exact ints)."""
+    ax = offs.ndim - 1
+    r = jnp.arange(offs.shape[ax], dtype=jnp.int32)
+    offs = jax.lax.cummax(offs, axis=ax)
+    return 2 * r + jax.lax.cummin(offs - 2 * r, axis=ax)
 
 
 _TB_CHUNK = 64   # RL steps per while_loop iteration

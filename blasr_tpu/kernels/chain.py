@@ -1,6 +1,6 @@
 """Anchor chaining / candidate-interval selection on device.
 
-TPU-native re-derivation of BLASR's ``FindMaxIncreasingInterval``
+Batched re-derivation of BLASR's ``FindMaxIncreasingInterval``
 (usage: iblasr/BlasrAlignImpl.hpp:170-243): slide a genome window of length
 ``readLen*(1+indelRate)`` over the t-sorted anchors, compute the best
 increasing chain (LIS) inside each window weighted by total anchor bases
@@ -9,12 +9,12 @@ increasing chain (LIS) inside each window weighted by total anchor bases
 anchor statistics (ClusterList) for the mapQV significance gate.
 
 Formulated as a single O(A^2) chain DP (a scan of A steps, each an
-[B, A]-wide vector max on the VPU) instead of per-window LIS re-runs: the
-window constraint becomes a transition constraint ``t_i - t_j <= wlen``,
-which dominates the per-window formulation on TPU because every step is a
-dense masked max.  Chain start coordinates are carried through the DP, so
-no per-chain traceback is needed to produce intervals; parent pointers are
-still emitted for the guided-alignment path.
+[B, A]-wide vector max) instead of per-window LIS re-runs: the window
+constraint becomes a transition constraint ``t_i - t_j <= wlen``, which
+dominates the per-window formulation on a vector machine because every
+step is a dense masked max.  Chain start coordinates are carried through
+the DP, so no per-chain traceback is needed to produce intervals; parent
+pointers are still emitted for the guided-alignment path.
 """
 
 from __future__ import annotations
@@ -94,7 +94,7 @@ def chain_anchors(
     # in both coordinates (strict rectangle precedence; overlapping
     # anchors never share a chain) and the diagonal drift is capped at
     # 0.1x the spanned distance (no slack).  Same DP, tighter transition
-    # mask — the TPU formulation keeps the masked-max scan either way.
+    # mask — the formulation keeps the masked-max scan either way.
 ) -> Candidates:
     q, t, l, valid = anchors.q, anchors.t, anchors.l, anchors.valid
     B, A = q.shape
@@ -125,9 +125,9 @@ def chain_anchors(
     tf = t.astype(jnp.int32)
 
     # DP carries are anchor-major [A+D, B]: each scan step then reads a
-    # contiguous [D, B] row window and writes ONE row — on TPU a column
-    # update of a [B, A+D] array is a strided lane-dim scatter that touches
-    # every (8,128) tile column, while a row update is a single tile write.
+    # contiguous [D, B] row window and writes ONE row — a column update
+    # of a [B, A+D] array would be a strided scatter across the whole
+    # array, while a row update is one contiguous write.
     # Left-padded by D so the predecessor window [i-D, i) is a static-size
     # dynamic slice (anchor j lives at row j+D).
     def padc(x, fill):
@@ -330,7 +330,7 @@ def chain_members(candidates: Candidates, anchors: Anchors, *, max_chain: int):
     under the parent pointers, found by binary lifting: ~log2(max_chain)
     jump-table squarings plus one composition round per bit — ~14
     dependent gather rounds instead of a max_chain-step pointer chase
-    (a chase is pure gather latency on TPU)."""
+    (a chase is pure dependent-gather latency)."""
     B, C = candidates.end_idx.shape
     A = anchors.q.shape[1]
     M = max_chain

@@ -1,6 +1,6 @@
 """Sparse dynamic programming (SDP) pairwise alignment on device.
 
-TPU-native re-derivation of the reference's ``SDPAlign``
+Batched re-derivation of the reference's ``SDPAlign``
 (usage: iblasr/BlasrAlignImpl.hpp:902-909,980-990; standalone tool
 utils/SDPMatcher.cpp:16-22): k-mer fragments (default sdpTupleSize=11) are
 matched between a query and a target window, chained by sparse DP, and the
@@ -13,7 +13,7 @@ All stages are batched over pairs with static shapes:
   * fragment match: per-row target k-mer sort + vectorized searchsorted of
     query k-mers (two [N, L]-wide ops, no per-fragment loops);
   * chain: one masked-max scan over fragments (same O(F^2) vector DP as
-    kernels/chain.chain_anchors, VPU-friendly);
+    kernels/chain.chain_anchors, all vector work);
   * Global vs Local: Local takes the best chain anywhere; Global anchors
     the alignment to the full query span by extending the chain ends.
 """
@@ -159,8 +159,8 @@ def window_fragment_diags_banded(
     Rationale: the consumer (_band_offsets) gates fragments to within
     +-band of the flanking chain diagonals anyway, so a diag-local search
     loses nothing it would keep — and it replaces the per-row k-mer sort +
-    vmapped binary search (the two most expensive ops in the pipeline,
-    ~60 ms/batch on v5e) with D static shifted compares (~10 ms).  Ties
+    vmapped binary search (once the two most expensive ops in the
+    pipeline) with D static shifted compares.  Ties
     resolve to the lowest diagonal (nearest the path from below), not the
     lowest window position as the sort-based variant did.
 

@@ -1,6 +1,6 @@
 """Mapping configuration.
 
-TPU-native equivalent of the reference's ``MappingParameters``
+Batched-device equivalent of the reference's ``MappingParameters``
 (``iblasr/MappingParameters.h:207-381`` defaults, ``:390-689`` MakeSane).
 Two layers:
 
@@ -8,7 +8,7 @@ Two layers:
     reference's field names and default values, plus ``make_sane()``
     performing the same cross-field normalizations that the reference's
     tests exercise.
-  * :class:`ShapeConfig` — TPU-only static-shape knobs (bucket lengths,
+  * :class:`ShapeConfig` — device-only static-shape knobs (bucket lengths,
     anchor capacity, band width, batch size).  These have no reference
     counterpart: they exist because everything under ``jit`` must have
     static shapes.
@@ -280,7 +280,7 @@ def round_up(x: int, m: int) -> int:
 
 @dataclass(frozen=True)
 class ShapeConfig:
-    """Static-shape configuration for the jitted pipeline (TPU-only).
+    """Static-shape configuration for the jitted pipeline (device-only).
 
     No reference counterpart; these pad the ragged problem
     (reads 50 bp..100 kbp, anchors varying by 1e4) onto fixed shapes.
@@ -305,8 +305,9 @@ class ShapeConfig:
     #                               env BLASR_TPU_OCC_BLOCK=1)
     anchor_ext: int = 20          # max exact-match extension beyond k measured
     #                               (tuned on the bench workload: same
-    #                               placement accuracy as 36/4, ~12% faster)
-    band_width: int = 128         # banded-DP band (lane-aligned)
+    #                               placement accuracy as 36/4)
+    band_width: int = 128         # banded-DP band (the CUDA kernel's
+    #                               32 lanes x 4 cells)
     guide_anchors: int = 96       # chain members walked per candidate for
     #                               the band guide; the SDP hit fragments
     #                               provide the dense path, so the chain

@@ -1,7 +1,7 @@
 """Ultra-long-read handling: segment, map, stitch.
 
 The reference handles unbounded read lengths with per-read dynamic
-allocation; the TPU pipeline works on fixed length buckets.  Reads longer
+allocation; the device pipeline works on fixed length buckets.  Reads longer
 than the largest bucket are split into overlapping segments, each segment
 maps through the standard pipeline, and collinear segment alignments are
 stitched back into one alignment (coordinates shifted by segment origin,

@@ -5,7 +5,7 @@ AlignIntervals when the target gap dwarfs the query gap,
 BlasrAlignImpl.hpp:892-896): an alignment is allowed to jump one large
 (intron-like) target gap without paying per-base deletion costs.
 
-TPU-shaped realization: large target gaps split a read's hit into two
+Fixed-shape realization: large target gaps split a read's hit into two
 *collinear candidate alignments* (the banded kernel's slope-limited band
 can't absorb them, so the chain produces two candidates).  ``join_one_gap``
 merges such a pair into one alignment whose CIGAR carries a single 'N'

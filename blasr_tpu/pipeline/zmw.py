@@ -13,7 +13,7 @@ Re-derivations of:
   * CCS all-pass/full-pass re-alignment (MapReadsCCS, Blasr.cpp:550-729):
     same machinery with the CCS read as template.
 
-TPU shape: the per-ZMW target windows of a whole batch are concatenated
+Batched shape: the per-ZMW target windows of a whole batch are concatenated
 into a *mini genome index* (windows as contigs) and all subreads are
 mapped against it with the standard device pipeline; alignments landing in
 a foreign ZMW's window are dropped, and coordinates are translated back.

@@ -1,5 +1,5 @@
 """Multi-device tests on the virtual 8-CPU mesh: data-parallel equivalence
-and reference-sharded mapping (SURVEY.md §2.9 TPU-native parallelism)."""
+and reference-sharded mapping (SURVEY.md §2.9 device-mesh parallelism)."""
 
 import jax
 import jax.numpy as jnp

@@ -7,12 +7,13 @@ piece counts and CIGAR invariants.  CPU-friendly at small genome sizes.
 """
 
 import argparse
+import os
 import sys
 import time
 
 import numpy as np
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 def main() -> int:
@@ -30,17 +31,11 @@ def main() -> int:
                     "best time is reported (use >=3 for a warm number)")
     args = ap.parse_args()
 
-    import os
     import jax
-    from blasr_tpu.hostcache import host_cache_dir
+    from blasr_tpu.hostcache import enable_compile_cache
     if os.environ.get("JAX_PLATFORMS", "") == "cpu":
         jax.config.update("jax_platforms", "cpu")
-        cache = host_cache_dir("/root/repo/tests/.jax_cache")
-    else:
-        cache = "/root/repo/.jax_cache_tpu"
-    jax.config.update("jax_compilation_cache_dir", cache)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
-    jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
+    enable_compile_cache(0.5)
 
     from blasr_tpu.index import build_genome_index
     from blasr_tpu.params import MappingParams, ShapeConfig

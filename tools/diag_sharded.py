@@ -7,7 +7,7 @@ an 8 Mbp world with exact boundary reads, to explain score differences.
 import os
 import sys
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 os.environ.setdefault("XLA_FLAGS",
                       "--xla_force_host_platform_device_count=8")
 

@@ -16,11 +16,12 @@ exists, rescue-only today) before store_map_qvs.
     JAX_PLATFORMS=cpu python tools/diag_str.py
 """
 
+import os
 import sys
 
 import numpy as np
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 def main() -> int:

@@ -7,10 +7,11 @@ cache hits.
 """
 
 import argparse
+import os
 import sys
 import time
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 def main() -> int:
@@ -19,11 +20,8 @@ def main() -> int:
     ap.add_argument("--batch", type=int, default=32)
     args = ap.parse_args()
 
-    import jax
-    jax.config.update("jax_compilation_cache_dir",
-                      "/root/repo/.jax_cache_tpu")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
+    from blasr_tpu.hostcache import enable_compile_cache
+    enable_compile_cache()
     from blasr_tpu.index import build_genome_index
     from blasr_tpu.params import MappingParams, ShapeConfig
     from blasr_tpu.pipeline.map_read import Mapper

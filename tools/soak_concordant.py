@@ -12,12 +12,13 @@ window — the concordant contract, BlasrAlignImpl.hpp:1371-1527).
 """
 
 import argparse
+import os
 import sys
 import time
 
 import numpy as np
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 def main() -> int:
@@ -31,10 +32,8 @@ def main() -> int:
     args = ap.parse_args()
 
     import jax
-    jax.config.update("jax_compilation_cache_dir",
-                      "/root/repo/.jax_cache_tpu")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
+    from blasr_tpu.hostcache import enable_compile_cache
+    enable_compile_cache()
     from blasr_tpu.index import build_genome_index
     from blasr_tpu.io.fasta import FastaRecord
     from blasr_tpu.params import MappingParams, ShapeConfig

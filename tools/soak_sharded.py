@@ -14,7 +14,7 @@ import os
 import sys
 import time
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 os.environ.setdefault("XLA_FLAGS",
                       "--xla_force_host_platform_device_count=8")
